@@ -1,8 +1,8 @@
-"""bwtmerge_tpu — a TPU-native BWT-merge framework.
+"""bwtmerge_tpu — a JAX BWT-merge framework.
 
-A from-scratch re-design of the capabilities of jltsiren/bwt-merge for TPU
-hardware: JAX/XLA/Pallas on the compute path (batched LF/rank kernels, wavefront
-search, segmented interleave), C++ on the byte-codec/IO runtime.
+A from-scratch re-design of the capabilities of jltsiren/bwt-merge for
+accelerators: JAX/XLA on the compute path (batched LF/rank, wavefront and
+walk search, segmented interleave), C++ on the byte-codec/IO runtime.
 
 See DESIGN.md for the architecture and SURVEY.md for the reference analysis.
 """
@@ -13,12 +13,11 @@ __version__ = "0.1.0"
 def _tune_host_allocator() -> None:
     """Keep freed large buffers in the malloc arena instead of munmapping.
 
-    On VM hosts with remote-backed memory, first-touch page faults cost tens
-    of microseconds per 4 KiB page, so glibc's default policy (mmap every
-    allocation > 128 KiB, munmap on free) makes each fresh numpy buffer in a
-    streaming pipeline cost seconds (measured: 44 s -> 2 s for the chunked
-    merge on a 40 Mbp workload once buffers are reused).  Raising the mmap
-    and trim thresholds makes the heap retain and reuse those pages.
+    glibc's default policy (mmap every allocation > 128 KiB, munmap on
+    free) makes each fresh numpy buffer in a streaming pipeline pay its
+    first-touch page faults again; on hosts where those faults are slow
+    that dominates the chunked merge.  Raising the mmap and trim thresholds
+    makes the heap retain and reuse those pages.
     """
     try:
         import ctypes

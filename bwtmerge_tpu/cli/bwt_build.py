@@ -37,8 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", choices=("auto", "jax", "sharded", "numpy"),
                    default="auto",
                    help="suffix sort backend: device lax.sort prefix "
-                        "doubling (jax, ~100x at 100 Mbp), mesh-distributed "
-                        "sort (sharded, for > one chip's memory), host "
+                        "doubling (jax), mesh-distributed sort (sharded, for "
+                        "> one device's memory), host "
                         "numpy, or auto by collection size (default)")
     p.add_argument("--no-sidecar", action="store_true",
                    help="skip the read-text sidecar (<output>.reads4); the "
@@ -55,9 +55,13 @@ def main(argv=None) -> int:
         print_formats(sys.stdout)
         return 0
     check_format(args.output_format, "bwt_build", "output")
+    if args.backend != "numpy":
+        from ..utils.jax_setup import enable_compile_cache
+
+        enable_compile_cache()
 
     if not args.quiet:
-        print("BWT builder (TPU)")
+        print("BWT builder")
         print("")
         print(f"Input:   {args.input} (plain reads)")
         print(f"Output:  {args.output} ({args.output_format})"
@@ -74,15 +78,19 @@ def main(argv=None) -> int:
         print(f"bwt_build: no reads in {args.input}", file=sys.stderr)
         return 1
 
-    runs, _ = build_from_reads((flat, lengths), rlo=args.rlo,
+    runs, order = build_from_reads((flat, lengths), rlo=args.rlo,
                                backend=args.backend)
     write_bwt(args.output, args.output_format, runs, alphabet_for(runs))
     if not args.no_sidecar:
         # read-text sidecar: lets merges walk-search this BWT without a
-        # device decode (read ORDER is irrelevant to the rank array — the
-        # walk's emissions depend only on each read's own characters)
+        # device decode.  Its columns follow the BWT's sequence order
+        # (sequence k is read order[k]), which the merge's sidecar
+        # spot-check decodes against.
         from ..formats.sidecar import sidecar_path, write_sidecar
+        from ..ops.sa_jax import _reorder_packed
 
+        if args.rlo:
+            flat, lengths = _reorder_packed(flat, lengths, order)
         write_sidecar(sidecar_path(args.output), lengths, flat)
     seconds = time.monotonic() - start
 

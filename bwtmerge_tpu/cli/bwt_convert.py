@@ -44,7 +44,7 @@ def main(argv=None) -> int:
     check_format(args.output_format, "bwt_convert", "output")
 
     if not args.quiet:
-        print("BWT converter (TPU)")
+        print("BWT converter")
         print("")
         print(f"Input:   {args.input} ({args.input_format})")
         print(f"Output:  {args.output} ({args.output_format})")

@@ -46,12 +46,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--index-placement", dest="index_placement",
                    default="auto", choices=("auto", "replicated", "sharded"),
                    help="device index placement: replicate the record table"
-                        " per chip, block-shard it over the mesh (indexes"
-                        " beyond one chip's HBM), or choose by size (auto)")
+                        " per device, block-shard it over the mesh (indexes"
+                        " beyond one device's memory), or choose by size"
+                        " (auto)")
     p.add_argument("--hbm-budget-mb", dest="hbm_budget_mb", type=int,
                    default=None, metavar="MB",
-                   help="per-device HBM budget driving --index-placement"
-                        " auto (default 12288)")
+                   help="per-device memory budget driving --index-placement"
+                        " auto (default: the device's reported memory limit)")
     p.add_argument("-d", dest="temp_dir", default=".", metavar="DIR",
                    help="temp directory for rank-array spills (default .)")
     p.add_argument("-v", dest="patterns", default=None, metavar="FILE",
@@ -316,7 +317,7 @@ def main(argv=None) -> int:
     config.sanitize()
 
     if not args.quiet:
-        print("BWT-merge (TPU)")
+        print("BWT-merge")
         print("")
         for name, fmt in zip(inputs, in_formats):
             print(f"Input:            {name} ({fmt})")

@@ -13,10 +13,9 @@ merged output must flow straight from the streaming interleave
   * cumulative char counts / sequence counts for the headers
 
 Chunk encoding runs in the native C++ kernels (native/src/writer.cpp) into
-persistent buffers owned by the writer and reused across chunks: on the
-target VM class a first-touch page fault costs ~50 us (remote-backed
-memory), so fresh per-chunk numpy temporaries — the one-hot/cumsum sample
-tables and the stored-run split — used to dominate the whole merge phase.
+persistent buffers owned by the writer and reused across chunks: fresh
+per-chunk numpy temporaries — the one-hot/cumsum sample tables and the
+stored-run split — pay first-touch page faults on every chunk.
 
 Headers that carry totals (NativeHeader, SGAHeader) are back-patched with a
 seek on close, so targets must be real seekable files.  Output block tables

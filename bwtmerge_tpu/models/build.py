@@ -81,9 +81,9 @@ def build_from_reads(sequences: Sequence[np.ndarray], rlo: bool = False,
     and the read order actually used (identity when rlo=False).
 
     backend: 'numpy' (host prefix doubling, models/oracle.py), 'jax' (device
-    lax.sort prefix doubling, ops/sa_jax.py — ~100x at 100 Mbp), 'sharded'
+    lax.sort prefix doubling, ops/sa_jax.py), 'sharded'
     (mesh-distributed suffix sort, parallel/sort_distributed.py — for
-    collections whose suffix array exceeds one chip's memory), or 'auto'
+    collections whose suffix array exceeds one device's memory), or 'auto'
     (device when present and the collection exceeds ~1M positions).
     """
     from ..ops.sa_jax import pack_collection

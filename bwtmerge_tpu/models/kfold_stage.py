@@ -22,7 +22,8 @@ Frame layout (little-endian), chosen so a run costs ~2 B on the pipe:
   u32 exc_idx[n_exc]           (runs whose length >= 255)
   u64 exc_len[n_exc]
 
-Children never import jax.
+Children never initialise a JAX backend: importing the package is fine, a
+device call is not (the parent process owns the device).
 """
 
 from __future__ import annotations
@@ -81,18 +82,30 @@ def read_frames(inp):
 
 
 def spill_stream(spill_files):
-    """Ascending (values, counts) chunks from drained spill files
-    [(path, n_runs)] — consecutive sorted ranges, streamed in order."""
-    from .spill import _SpillFile
+    """Ascending sorted-unique (values, counts) chunks from a step's drained
+    spill files [(path, n_runs)].  Each file is sorted, but their value
+    ranges overlap: a step's lane-block parts drain into one spill ladder
+    concurrently, so a file spilled mid-step holds runs from every part.
+    The files are therefore k-way merged (duplicates summed), as
+    RankArraySpill.stream merges its own."""
+    from .spill import _SpillFile, merge_ra_chunk_streams
 
-    for path, n_runs in spill_files:
-        f = _SpillFile(path, int(n_runs))
+    chunk = 4 * 1024 * 1024
+    files = [_SpillFile(path, int(n_runs)) for path, n_runs in spill_files]
+
+    def file_chunks(f):
         while not f.done():
-            f.refill(4 * 1024 * 1024)
+            f.refill(chunk)
             v, c = f.take_until(np.iinfo(np.int64).max)
             if v.size:
                 yield v, c
-        f.delete()
+
+    try:
+        yield from merge_ra_chunk_streams([file_chunks(f) for f in files],
+                                          chunk_runs=chunk)
+    finally:
+        for f in files:
+            f.delete()
 
 
 def main(argv) -> int:

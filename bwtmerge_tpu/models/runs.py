@@ -5,7 +5,7 @@ arrays (syms: uint8, lens: int64) of MAXIMAL runs — the vector analog of the
 reference's RLE byte stream in a BlockArray (support.h:90-150, 221-286). All
 format readers produce RunArrays; all writers and the device index builder
 consume them. Unlike the reference's byte stream, this layout uploads directly
-to TPU memory and vectorizes.
+to device memory and vectorizes.
 """
 
 from __future__ import annotations

@@ -35,13 +35,17 @@ def build_library() -> str:
     sources = [os.path.join(_SRC_DIR, s) for s in _SOURCES if os.path.exists(os.path.join(_SRC_DIR, s))]
     if not sources:
         raise RuntimeError("native sources not found")
+    # build to a per-process file and rename it into place: processes that
+    # start together (test workers) never load a half-written library
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        "-fvisibility=hidden", "-o", _LIB_PATH, *sources, "-pthread",
+        "-fvisibility=hidden", "-o", tmp, *sources, "-pthread",
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"native build failed:\n{proc.stderr}")
+    os.replace(tmp, _LIB_PATH)
     return _LIB_PATH
 
 

@@ -7,7 +7,7 @@
 //    and caps the varint to the bytes remaining in the block).
 //
 // These are sequential byte-stream transforms; they run at memory bandwidth on
-// the host while the TPU owns the batched rank/search compute.
+// the host while the device owns the batched rank/search compute.
 
 #include <cstdint>
 

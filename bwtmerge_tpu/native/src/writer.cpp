@@ -3,10 +3,9 @@
 //
 // Rationale: the Python streaming writers (formats/streaming.py) originally
 // materialized the stored-run partition plus one-hot/cumsum temporaries per
-// chunk with numpy — hundreds of MB of FRESH allocations per chunk.  On the
-// target VM class, first-touch of a brand-new page costs ~50 us in the kernel
-// (remote-backed memory; recycled pages are ~2 us), so those temporaries
-// dominated the merge phase.  These kernels fuse partition + encode into one
+// chunk with numpy — hundreds of MB of FRESH allocations per chunk, each page
+// paying a first-touch fault, so those temporaries dominated the merge
+// phase.  These kernels fuse partition + encode into one
 // sequential pass over the chunk and write into buffers the caller allocates
 // once and reuses for every chunk.
 //

@@ -1,12 +1,11 @@
 """Device-side multi-string BWT construction: prefix-doubling suffix array
 and RLO read ordering as `lax.sort` programs.
 
-TPU-first replacement for the host oracle's numpy prefix doubling
+Device replacement for the host oracle's numpy prefix doubling
 (models/oracle.py suffix_array): the same O(n log^2 n) algorithm, but every
-round is ONE fused multi-operand device sort — measured ~100x the numpy path
-at 100 Mbp (the host build of the 102 Mbp bench fixture takes ~11 min; the
-device build is seconds).  The reference has no equivalent: it consumes BWTs
-prebuilt by external tools (ropebwt / ropebwt2, paper.tex:274).
+round is ONE fused multi-operand device sort.  The reference has no
+equivalent: it consumes BWTs prebuilt by external tools (ropebwt /
+ropebwt2, paper.tex:274).
 
 Collection conventions follow models/oracle.py build_bwt: sequence k is
 terminated by a distinct endmarker $_k with $_i < $_j iff i < j, encoded by
@@ -67,8 +66,7 @@ def _sa_ranks(text_pad: jax.Array, n_pad: int):
 
     def invert(order, rank_sorted):
         # rank-by-position = inverse permutation of `order`, computed by ONE
-        # sort (XLA scatters serialize per element; a 2-operand bitonic sort
-        # of 100M lanes is ~10x faster on v5e)
+        # 2-operand sort instead of a scatter
         _, rank = jax.lax.sort((order, rank_sorted), num_keys=1,
                                is_stable=False)
         return rank
@@ -127,16 +125,15 @@ def suffix_array_device(text: np.ndarray) -> np.ndarray:
 def _bwt_from_nibbles(nib: jax.Array, n_pad: int, m: int, n: int):
     """BWT (uint8[ceil(n/2)], 2 symbols/byte) from 4-bit-packed chars.
 
-    The remote H2D/D2H link moves tens of MB/s, so both directions are
-    packed 4 bits per symbol (8x less than the naive int32 text upload,
-    measured 18 s -> 2 s at 102 Mbp).  The oracle's remapped text
+    Both host<->device directions are packed 4 bits per symbol (8x less
+    than the naive int32 text upload).  The oracle's remapped text
     (endmarker k -> k, char c -> m + c) is derived ON DEVICE from the char
     plane: endmarker positions carry char 0 and their ordinal is a running
     count of endmarkers seen.  Suffix-array padding (descending below 0,
     _end_padding semantics) is generated from iota.
 
-    The per-row gather text[sa-1] would pay ~34 ns of HBM latency per
-    suffix; instead the previous-character array is carried as a sort
+    Instead of a per-row gather text[sa-1], the previous-character array
+    is carried as a sort
     PAYLOAD: sorting (rank, prev_char) by rank permutes prev_char into
     suffix-array order in one fused device sort.
     """
@@ -230,7 +227,7 @@ def build_bwt_device(sequences, chunk: int = 1 << 22) -> RunArrays:
 
     # vectorized assembly of the char plane (0 marks endmarker positions;
     # the unique endmarker ORDINALS are derived on device), nibble-packed
-    # for the upload: the remote link is the dominant cost at 100 Mbp+
+    # for the upload (0.5 B/position over the host link)
     chars = np.zeros(n + (n & 1), dtype=np.uint8)
     ends = np.cumsum(lengths + 1) - 1
     mask = np.ones(n, dtype=bool)

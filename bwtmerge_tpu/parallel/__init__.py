@@ -1,6 +1,6 @@
-"""Multi-chip / multi-host parallelism: device meshes, sequence-block
+"""Multi-device / multi-host parallelism: device meshes, sequence-block
 sharding, sharded search and verification, jax.distributed bring-up
-(TPU analog of the reference's thread layer; SURVEY.md §5)."""
+(device analog of the reference's thread layer; SURVEY.md §5)."""
 
 from .distributed import (
     exchange_by_rank_range,

@@ -2,13 +2,14 @@
 exchange + sharded merge output.
 
 The reference is explicitly single-node (paper.tex:197; no MPI/NCCL anywhere
-— SURVEY.md §5 "distributed communication backend").  The TPU framework
-scales out with the same decomposition it uses across chips:
+— SURVEY.md §5 "distributed communication backend").  This framework
+scales out with the same decomposition it uses across devices:
 
   hosts   -> jax processes (jax.distributed.initialize)
   search  -> B's sequence blocks, partitioned per process, then per local
              device (parallel/mesh.py); the FM-indexes are replicated per
-             host (block-sharding an over-HBM index: ops/rank_sharded.py)
+             host (an index beyond one device is block-sharded:
+             ops/rank_sharded.py)
   combine -> A-POSITION-RANGE exchange: sample-based splitters partition
              [0, |A|] into one contiguous range per process; each process
              routes its sorted RA pieces to the owning process with ONE
@@ -26,6 +27,14 @@ scales out with the same decomposition it uses across chips:
 Single-process calls degrade to the local mesh path, so this module is safe
 to use unconditionally; true multi-host runs need the driver to start one
 process per host with the same coordinator address.
+
+One process owns each card: a JAX process reserves most of a GPU's memory
+when it first uses it, so a second process on the same card fails for want
+of memory.  On one host, one process drives all of its cards through the
+local mesh; across hosts, each process drives its own host's cards.
+jax.distributed.initialize needs its coordinator_address
+("host:port"), num_processes and process_id given explicitly where no
+cluster manager provides them.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""Multi-chip execution: sequence-block data parallelism over a device mesh.
+"""Multi-device execution: sequence-block data parallelism over a device mesh.
 
-TPU-native replacement for the reference's thread-level parallelism
+Device replacement for the reference's thread-level parallelism
 (ParallelLoop, utils.h:254-302; sequence blocks, fmi.cpp:351-357).  The
 mapping, per SURVEY.md §5:
 
@@ -11,12 +11,12 @@ mapping, per SURVEY.md §5:
                          in A)
   run/thread buffers  -> fixed-capacity per-device emission buffers inside
                          one compiled program (wavefront_search_device)
-  merge-buffer ladder -> all_gather of per-device RA runs over ICI + host
+  merge-buffer ladder -> all_gather of per-device RA runs + host
                          compaction (sorted-unique merge)
 
-The FM-indexes of A and B are replicated across the mesh (block-sharding for
-> HBM indexes is the round-2 extension); only the root sequence ranges differ
-per device.
+The FM-indexes of A and B are replicated across the mesh (indexes beyond
+one device's memory are block-sharded by ops/rank_sharded.py); only the root
+sequence ranges differ per device.
 """
 
 from __future__ import annotations
@@ -97,9 +97,8 @@ def dynamic_block_search(a_idx, b_idx, a_sequences: int, b_sequences: int,
                          emit_cap: Optional[int] = None,
                          b_size: Optional[int] = None,
                          weights=None,
-                         streamed: Optional[bool] = None,
                          stats: Optional[dict] = None) -> None:
-    """Host-side dynamic block queue over the mesh's devices — the TPU
+    """Host-side dynamic block queue over the mesh's devices — the device
     analog of the reference's atomic-counter scheduler (ParallelLoop,
     utils.cpp:204-209), with devices in place of threads.
 
@@ -119,15 +118,12 @@ def dynamic_block_search(a_idx, b_idx, a_sequences: int, b_sequences: int,
 
     import jax
 
-    from ..ops.search_jax import (default_streamed, search_and_pack,
-                                  unpack_search)
+    from ..ops.search_jax import search_and_pack, unpack_search
     from ..utils.ranges import get_bounds
 
     mesh = mesh or make_mesh()
     devices = list(mesh.devices.reshape(-1))
     n_dev = len(devices)
-    if streamed is None:
-        streamed = default_streamed()
     if n_blocks is None:
         n_blocks = 4 * n_dev
     n_blocks = max(1, min(n_blocks, max(1, b_sequences)))
@@ -177,7 +173,7 @@ def dynamic_block_search(a_idx, b_idx, a_sequences: int, b_sequences: int,
                     packed = search_and_pack(
                         a_local, b_local, jnp.int32(sp), jnp.int32(ep),
                         a_sequences, frontier_cap=frontier_cap,
-                        emit_cap=emit_cap, streamed=streamed)
+                        emit_cap=emit_cap)
                     v, c, ovf = unpack_search(*packed)
                 if ovf:
                     raise RuntimeError(
@@ -206,16 +202,12 @@ def dynamic_block_search(a_idx, b_idx, a_sequences: int, b_sequences: int,
 
 
 def _sharded_search_packed(a_idx, b_idx, a_sequences, b_sequences, mesh,
-                           frontier_cap, emit_cap, b_seq_offset, streamed):
+                           frontier_cap, emit_cap, b_seq_offset):
     """Run the whole search + device-side packing as ONE shard_map program:
     each device wavefront-searches its own B-sequence block and sorts +
     packs its RA runs in place (8 B/run -> 1-2 B/run over the host link).
     Returns the still-sharded device outputs (dc8 [D, 3, E], exc, exc4,
     n_emit, n_exc, n_exc4, overflow) plus the mesh size."""
-    from ..ops.search_jax import default_streamed
-
-    if streamed is None:
-        streamed = default_streamed()
     mesh = mesh or make_mesh()
     n_dev = mesh.devices.size
     bounds = sequence_shards(b_sequences, n_dev) + np.int32(b_seq_offset)
@@ -236,19 +228,15 @@ def _sharded_search_packed(a_idx, b_idx, a_sequences, b_sequences, mesh,
         def fn(s, e):
             v, c, n, ovf = wavefront_search_device2(
                 a, b, s, e, a_sequences,
-                frontier_cap=frontier_cap, emit_cap=emit_cap,
-                streamed=streamed)
+                frontier_cap=frontier_cap, emit_cap=emit_cap)
             # compact=False: ship raw sorted runs — every host consumer
             # (unpack+compact_rank_array, the chunk streams) sums duplicates
-            # anyway, and the device compaction is gather-bound (~4 s at
-            # 67M lanes on a v5e vs 0.4 s for the sort-only pack)
+            # anyway, so the device compaction's two extra sorts are saved
             dc8, exc, exc4, esc, n_u, n_exc, n_exc4, n_esc2 = pack_ra_device(
                 v, c, n, compact=False)
             return dc8, exc, exc4, esc, n_u, n_exc, n_exc4, n_esc2, ovf
         return jax.vmap(fn)(sp, ep)
 
-    # check_vma=False: the streamed-probe path calls pallas_call inside this
-    # shard_map, and pallas outputs carry no varying-mesh-axes annotation.
     search_all = jax.jit(jax.shard_map(
         per_shard, mesh=mesh,
         in_specs=(P(), P(), P(SEQ_AXIS), P(SEQ_AXIS)),
@@ -310,7 +298,6 @@ def sharded_packed_ra(
     frontier_cap: int = 4096,
     emit_cap: int = 65536,
     b_seq_offset: int = 0,
-    streamed: Optional[bool] = None,
 ) -> Optional[ShardedPackedRA]:
     """Mesh-parallel rank array that STAYS on the devices: returns a
     ShardedPackedRA whose stream() feeds the merge phase directly, or None
@@ -321,7 +308,7 @@ def sharded_packed_ra(
     dc8, exc, exc4, esc, n_emit, n_exc, n_exc4, n_esc2, overflow, n_dev = \
         _sharded_search_packed(
             a_idx, b_idx, a_sequences, b_sequences, mesh, frontier_cap,
-            emit_cap, b_seq_offset, streamed)
+            emit_cap, b_seq_offset)
 
     from ..ops.search_jax import EXC4_CAP
 
@@ -368,7 +355,6 @@ def sharded_rank_array(
     frontier_cap: int = 4096,
     emit_cap: int = 65536,
     b_seq_offset: int = 0,
-    streamed: Optional[bool] = None,
 ) -> Tuple[np.ndarray, np.ndarray, bool]:
     """Rank array of B vs A computed data-parallel over the mesh.
 
@@ -387,7 +373,7 @@ def sharded_rank_array(
     dc8, exc, exc4, esc, n_emit, n_exc, n_exc4, n_esc2, overflow, n_dev = \
         _sharded_search_packed(
             a_idx, b_idx, a_sequences, b_sequences, mesh, frontier_cap,
-            emit_cap, b_seq_offset, streamed)
+            emit_cap, b_seq_offset)
 
     from ..ops.search_jax import EXC_CAP, unpack_ra
 
@@ -445,7 +431,7 @@ def sharded_walk_packed_ra(a_idx: DeviceFMIndex, creads: np.ndarray,
                            a_sequences: Optional[int] = None
                            ) -> "ShardedPackedRA":
     """Mesh-parallel WALK search: read lanes sharded over devices, cplanes
-    replicated — the walk engine's multi-chip story (round-5 verdict #4).
+    replicated — the walk engine's multi-device path.
 
     Walk lanes are whole reads, so the shard is embarrassingly parallel:
     each device walks its lane block through the replicated cplane index,

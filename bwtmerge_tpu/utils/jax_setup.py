@@ -4,24 +4,26 @@ from __future__ import annotations
 
 import os
 
-_done = False
+# Fixed, gitignored cache directory inside the checkout: the path is part of
+# the cache key, so a directory that moves between runs never hits.
+_REPO = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+DEFAULT_CACHE_DIR = os.path.join(_REPO, ".jax_cache")
 
 
-def enable_compile_cache(cache_dir: str | None = None) -> None:
-    """Turn on the persistent XLA compile cache (idempotent).
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compile cache; returns its directory.
 
-    Remote-attached TPU compiles cost tens of seconds to minutes per program;
-    the on-disk cache makes repeat CLI/bench invocations start warm.
+    Where JAX_COMPILATION_CACHE_DIR is set, JAX reads it itself and this
+    sets nothing.  Otherwise the cache goes to DEFAULT_CACHE_DIR, unless
+    the process already configured a directory of its own.
     """
-    global _done
-    if _done:
-        return
-    _done = True
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
     import jax
 
-    cache_dir = cache_dir or os.environ.get(
-        "BWTMERGE_XLA_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "bwtmerge_tpu", "xla"))
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    if not jax.config.jax_compilation_cache_dir:
+        os.makedirs(DEFAULT_CACHE_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", DEFAULT_CACHE_DIR)
+    return jax.config.jax_compilation_cache_dir

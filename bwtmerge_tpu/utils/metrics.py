@@ -28,6 +28,23 @@ def memory_usage() -> int:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
+def card_info() -> str:
+    """The GPU's name and power limit as nvidia-smi reports them
+    ("NVIDIA H100 80GB HBM3, 700.00 W"), one line per card; "not available"
+    where nvidia-smi is missing or fails.  A card set below its maximum
+    power runs slower under load, so every timing is reported beside this."""
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return "not available"
+    return out.strip() or "not available"
+
+
 def in_megabytes(num_bytes: int) -> float:
     return num_bytes / float(MEGABYTE)
 

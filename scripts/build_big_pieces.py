@@ -24,11 +24,9 @@ GROUPS = {
 
 
 def main() -> None:
-    import jax
+    from bwtmerge_tpu.utils.jax_setup import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(CACHE, "xla_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    enable_compile_cache()
 
     from bwtmerge_tpu.models.kfold import merge_files_many
     from bwtmerge_tpu.models.merge import MergeConfig

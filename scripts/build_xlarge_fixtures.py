@@ -6,16 +6,16 @@ index.  Inserts: two more 102 Mbp sets (sga + read-text sidecars).  All
 cached under .bench_cache/xl_*; reruns are no-ops.
 """
 import os, sys, time
-sys.path.insert(0, "/root/repo")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 import numpy as np
 
-CACHE = "/root/repo/.bench_cache"
+CACHE = os.path.join(REPO, ".bench_cache")
 from bwtmerge_tpu.native.build import build_library
 build_library()
 
-import jax
-jax.config.update("jax_compilation_cache_dir", os.path.join(CACHE, "xla_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+from bwtmerge_tpu.utils.jax_setup import enable_compile_cache
+enable_compile_cache()
 
 from bwtmerge_tpu.formats import read_bwt, write_bwt
 from bwtmerge_tpu.formats.sidecar import sidecar_path, write_sidecar

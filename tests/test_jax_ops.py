@@ -42,6 +42,21 @@ class TestDeviceRank:
         got = np.asarray(idx.ranks_all(jnp.asarray(positions, jnp.int32)))
         assert np.array_equal(got[:, :6], want)
 
+    @pytest.mark.parametrize("n_seqs,length", [(4, 31), (8, 47), (3, 9)])
+    def test_ranks_all_at_size_and_sentinel_tails(self, rng, n_seqs, length):
+        """Queries at i == size (the extra record block) and batches whose
+        tail is padded with the sentinel position size, across sizes that
+        end on and off a 32-position block boundary."""
+        seqs = [rng.integers(1, 5, size=length) for _ in range(n_seqs)]
+        a = _fmi(seqs)
+        n = a.size()
+        idx = DeviceFMIndex.build(a.runs, a.alpha.counts())
+        q = np.concatenate([np.arange(n + 1), np.full(64, n)])
+        want = a.rank_index.ranks_all(q)
+        got = np.asarray(idx.ranks_all(jnp.asarray(q, jnp.int32)))
+        assert np.array_equal(got[:, :6], want)
+        assert np.array_equal(got[-1, :6], a.alpha.counts())
+
     def test_rank_single_char(self, pair, rng):
         _, _, a, _ = pair
         idx = DeviceFMIndex.build(a.runs, a.alpha.counts())
@@ -354,6 +369,23 @@ class TestBlockedPackedRA:
 
 
 class TestChunkedBatchCount:
+    def test_large_batch_equals_verify(self, pair):
+        """2^14+ patterns (the batch size where a large-batch search path
+        used to take over) count exactly like the host FMI.verify."""
+        a_seqs, _, a, _ = pair
+        rng2 = np.random.default_rng(5)
+        pats = []
+        for k in range((1 << 14) + 37):
+            if k % 2:
+                s = a_seqs[k % len(a_seqs)]
+                lo = int(rng2.integers(0, max(1, len(s) - 3)))
+                pats.append(np.asarray(s[lo:lo + int(rng2.integers(1, 9))]))
+            else:
+                pats.append(rng2.integers(1, 6, size=int(rng2.integers(1, 9))))
+        got = batch_count(a.device_index, pats, a.alpha.char2comp)
+        assert np.array_equal(got, a.verify(pats))
+        assert got.sum() > 0
+
     def test_many_patterns_chunked(self, pair):
         _, _, a, _ = pair
         idx = DeviceFMIndex.build(a.runs, a.alpha.counts())

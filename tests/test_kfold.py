@@ -266,3 +266,38 @@ def test_lane_blocked_summed_parts(tmp_path, monkeypatch):
                               a.sequences(), b.sequences())
     np.testing.assert_array_equal(gv, wv)
     np.testing.assert_array_equal(gc, wc)
+
+
+def test_stage_merges_overlapping_spill_files(tmp_path):
+    """A step whose lane-block parts drain concurrently spills files with
+    OVERLAPPING value ranges; the chain stage must k-way merge them (it once
+    concatenated them, which wrote a corrupt fold on large pieces)."""
+    from bwtmerge_tpu.models.kfold_stage import spill_stream
+    from bwtmerge_tpu.models.spill import RankArraySpill
+    from bwtmerge_tpu.ops.search_np import compact_rank_array
+
+    rng = np.random.default_rng(11)
+    spill = RankArraySpill(temp_dir=str(tmp_path), spill_threshold_runs=300,
+                           compact_every=100)
+    all_v, all_c = [], []
+    parts = [np.sort(rng.choice(5000, size=600, replace=False))
+             for _ in range(2)]
+    for lo in range(0, 600, 50):          # two parts' chunks interleaved
+        for v in parts:
+            chunk = v[lo:lo + 50].astype(np.int64)
+            c = rng.integers(1, 4, size=chunk.size).astype(np.int64)
+            spill.emit(chunk, c)
+            all_v.append(chunk)
+            all_c.append(c)
+    spill._compact()
+    if spill._base is not None and spill._base[0].size:
+        spill._spill()
+    files = [(f.path, f.n_runs) for f in spill._files]
+    assert len(files) >= 2
+    want_v, want_c = compact_rank_array(np.concatenate(all_v),
+                                        np.concatenate(all_c))
+    got = list(spill_stream(files))
+    got_v = np.concatenate([g[0] for g in got])
+    got_c = np.concatenate([g[1] for g in got])
+    assert np.array_equal(got_v, want_v)
+    assert np.array_equal(got_c, want_c)

@@ -273,3 +273,43 @@ class TestParallelInterleave:
         lens = np.concatenate([p[1] for p in parts])
         got = type(fa.runs)(syms, lens)
         assert got == fa.runs
+
+
+class TestDeviceDecisions:
+    def test_walk_failure_fails_the_merge(self, rng, monkeypatch):
+        """A failing walk search raises; it does not fall back to the trie."""
+        from bwtmerge_tpu.ops import walk_jax
+
+        a_seqs = oracle.random_collection(rng, 6, 5, 40)
+        b_seqs = oracle.random_collection(rng, 5, 5, 40)
+        a, b = _fmi(a_seqs), _fmi(b_seqs)
+
+        def broken(*args, **kwargs):
+            raise RuntimeError("walk compile refused")
+
+        monkeypatch.setattr(walk_jax, "blocked_walk_and_pack", broken)
+        with pytest.raises(RuntimeError, match="walk compile refused"):
+            merge_fmi(a, b, MergeConfig(backend="jax", search="walk",
+                                        devices=1))
+
+    @pytest.mark.parametrize("limit,want", [
+        (0, "replicated"),             # no limit reported (the CPU)
+        (1 << 40, "replicated"),       # tables fit one device
+        (64, "sharded"),               # tables exceed one device
+    ])
+    def test_placement_follows_device_limit(self, rng, monkeypatch,
+                                            limit, want):
+        from bwtmerge_tpu.models import merge as merge_mod
+
+        a = _fmi(oracle.random_collection(rng, 6, 5, 40))
+        b = _fmi(oracle.random_collection(rng, 5, 5, 40))
+        monkeypatch.setattr(merge_mod, "device_memory_limit", lambda: limit)
+        assert merge_mod._resolve_placement(MergeConfig(), a, b, 4) == want
+        # an explicit budget overrides the device's limit
+        assert merge_mod._resolve_placement(
+            MergeConfig(hbm_budget_bytes=1 << 40), a, b, 4) == "replicated"
+
+    def test_cpu_reports_no_memory_limit(self):
+        from bwtmerge_tpu.models.merge import device_memory_limit
+
+        assert device_memory_limit() == 0

@@ -117,27 +117,6 @@ class TestShardedRankArray:
         assert np.array_equal(got_v, want[0])
         assert np.array_equal(got_c, want[1])
 
-    def test_streamed_probe_under_shard_map(self, rng):
-        """The Pallas streamed-probe path must compose with shard_map (it
-        crashed with a check_vma error on TPU before mesh.py disabled vma
-        checking); interpret mode makes it runnable on the CPU mesh."""
-        a_seqs = oracle.random_collection(rng, 6, 10, 40)
-        b_seqs = oracle.random_collection(rng, 9, 10, 40)
-        a, b = _fmi(a_seqs), _fmi(b_seqs)
-        want = search_np.build_rank_array(
-            a.rank_index, a.alpha.C.astype(np.int64),
-            b.rank_index, b.alpha.C.astype(np.int64),
-            a.sequences(), b.sequences())
-
-        a_idx = DeviceFMIndex.build(a.runs, a.alpha.counts())
-        b_idx = DeviceFMIndex.build(b.runs, b.alpha.counts())
-        v, c, overflow = sharded_rank_array(
-            a_idx, b_idx, a.sequences(), b.sequences(), mesh=make_mesh(4),
-            frontier_cap=1024, emit_cap=16384, streamed=True)
-        assert not overflow
-        assert np.array_equal(v, want[0])
-        assert np.array_equal(c, want[1])
-
     def test_overflow_flag(self, rng):
         a_seqs = oracle.random_collection(rng, 8, 10, 60)
         b_seqs = oracle.random_collection(rng, 12, 10, 60)

@@ -79,3 +79,27 @@ class TestHashing:
 
         r = RunArrays.from_values(vals)
         assert fnv1a_runs(r.syms, r.lens) == fnv1a_bytes(vals)
+
+
+class TestCompileCache:
+    def test_env_dir_is_honoured(self, tmp_path, monkeypatch):
+        """With JAX_COMPILATION_CACHE_DIR set, the helper configures
+        nothing of its own."""
+        import jax
+
+        from bwtmerge_tpu.utils import jax_setup
+
+        before = jax.config.jax_compilation_cache_dir
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert jax_setup.enable_compile_cache() == str(tmp_path)
+        assert jax.config.jax_compilation_cache_dir == before
+
+    def test_default_dir_inside_checkout_and_ignored(self):
+        import os
+
+        from bwtmerge_tpu.utils.jax_setup import DEFAULT_CACHE_DIR
+
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert os.path.dirname(DEFAULT_CACHE_DIR) == repo
+        ignored = open(os.path.join(repo, ".gitignore")).read().split()
+        assert os.path.basename(DEFAULT_CACHE_DIR) + "/" in ignored
